@@ -1,6 +1,6 @@
 """Offline P-O-O angle-matrix builder.
 
-Batched TPU/JAX re-provision of the reference's Cython analysis helper
+Batched JAX re-provision of the reference's Cython analysis helper
 (cython_exts/helper/analysis_helper.pyx:15-38 ``get_anglematrix``): for every
 frame, for every O-O pair below a distance cutoff, compute the P-O-O angle at
 the donor and mark pairs at or above the angle cutoff. Here the per-frame work

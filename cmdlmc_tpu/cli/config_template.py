@@ -34,7 +34,7 @@ _SECTION_HELP = {
     "Output": "Observables (columns) or xyz output.",
     "DistanceTransformation": "Optional O-O -> O-H3O+ distance rescaling.",
     "DistanceInterpolator": "Optional residence-time relaxation of rescaled distances.",
-    "Engine": "TPU engine: replicas, seed, streaming and event bounds.",
+    "Engine": "Engine: replicas, seed, streaming and event bounds.",
 }
 
 

@@ -115,12 +115,6 @@ def kmc_water_main(settings, out=None):
     keys = None
     start_time = _time.time()
     printed_header = False
-    use_fused = (
-        jax.default_backend() == "tpu" and wm.water_fused_supported(model)
-    )
-    site_disp = prev_pos = None
-    trunc_total = None  # device scalar, fetched once at the end
-    frames_total = 0
 
     block_size = int(getattr(settings, "chunk_size", None) or 512)
     # mdconvert trajectories are in nm; the lattice works in angstrom
@@ -142,31 +136,13 @@ def kmc_water_main(settings, out=None):
                 positions[0], start_position=settings.start_position,
             )
             keys = jax.random.split(jax.random.fold_in(key, 1), settings.replicas)
-            site_disp = jnp.zeros((n_sites, 3), jnp.float32)
-            prev_pos = positions[0]
-        if use_fused:
-            states, site_disp, prev_pos, trunc = wm.run_water_block_fused(
-                model, states, positions, block.start,
-                site_disp=site_disp, prev_pos=prev_pos, dt=dt,
-                seed=settings.seed, return_truncation=True,
-            )
-            trunc_total = trunc.sum() if trunc_total is None else (
-                trunc_total + trunc.sum()
-            )
-            # per-frame site trace unavailable on the fused path; report the
-            # block-end state at each print frame within the block
-            sites_np = np.broadcast_to(
-                np.asarray(states.site)[None, :], (block.n_frames, settings.replicas)
-            )
-        else:
-            idx = jnp.arange(
-                block.start, block.start + block.n_frames, dtype=jnp.int32
-            )
-            states, sites, msd = wm.run_water_block(
-                model, states, keys, positions, idx, dt=dt
-            )
-            sites_np = np.asarray(jax.device_get(sites))  # [B, R]
-        frames_total += block.n_frames
+        idx = jnp.arange(
+            block.start, block.start + block.n_frames, dtype=jnp.int32
+        )
+        states, sites, msd = wm.run_water_block(
+            model, states, keys, positions, idx, dt=dt
+        )
+        sites_np = np.asarray(jax.device_get(sites))  # [B, R]
         jumps0 = int(np.asarray(states.jumps)[0])
         corr0 = np.asarray(states.correction)[0]
         donors_np = donors_host
@@ -202,17 +178,6 @@ def kmc_water_main(settings, out=None):
                     file=out,
                     flush=True,
                 )
-
-    if trunc_total is not None and frames_total:
-        frac = float(np.asarray(trunc_total)) / (
-            settings.replicas * frames_total
-        )
-        if frac > 0:
-            print(
-                f"# WARNING: {100 * frac:.2f}% of replica-frames exhausted the "
-                "per-frame event budget — raise max_events",
-                file=out,
-            )
 
 
 def main(argv=None):

@@ -7,8 +7,10 @@ import argparse
 
 
 def main(argv=None):
+    """Run ``mdmc``; returns the finished :class:`~cmdlmc_tpu.driver.Simulation`
+    so in-process callers can inspect its final state."""
     parser = argparse.ArgumentParser(
-        description="TPU-native cMD/LMC kinetic Monte Carlo run",
+        description="cMD/LMC kinetic Monte Carlo run",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     parser.add_argument(
@@ -52,12 +54,13 @@ def main(argv=None):
             from cmdlmc_tpu.config.legacy import load_legacy_config
             from cmdlmc_tpu.driver import Simulation
 
-            cfg = load_legacy_config(args.configfile)
-            Simulation(cfg).run()
+            sim = Simulation(load_legacy_config(args.configfile))
+            sim.run()
         else:
             from cmdlmc_tpu.driver import run_from_config
 
-            run_from_config(args.configfile)
+            sim = run_from_config(args.configfile)
+    return sim
 
 
 if __name__ == "__main__":

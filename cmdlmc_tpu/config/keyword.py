@@ -86,7 +86,7 @@ _COMMON = [
     ("verbose", parse_bool, False, "Verbose output."),
     ("xyz_output", parse_bool, False, "Print xyz frames instead of columns."),
     ("replicas", parse_int, 1,
-     "Number of vmapped independent KMC replicas (TPU extension)."),
+     "Number of vmapped independent KMC replicas (extension of the reference)."),
     ("output", parse_string, None,
      "Write column output to this file instead of stdout."),
 ]

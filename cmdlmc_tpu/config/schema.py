@@ -5,7 +5,7 @@ inline ``#`` comments — main.py:56-158) so existing cMD/LMC configs port with
 minimal edits, while replacing signature-introspection string coercion
 (main.py:22-45 ``convert_to_match_signature``) with explicit typed schemas.
 
-New, TPU-specific knobs live in an ``[Engine]`` section: replica count (vmapped
+New knobs live in an ``[Engine]`` section: replica count (vmapped
 independent KMC chains), mandatory RNG seed (the reference's new-style path had
 no seed plumbing at all — SURVEY.md §5.2), per-frame event bound, streaming
 block size and device-mesh controls.
@@ -61,6 +61,12 @@ def coerce_section(cls, raw: dict[str, str]):
         key = key.lower()
         if key == "type":
             key = "type_"
+        removed = _REMOVED.get((cls.__section__, key))
+        if removed:
+            raise KeyError(
+                f"Option {key!r} of section [{cls.__section__}] was removed: "
+                f"{removed}. Delete it from the config."
+            )
         if key not in fields:
             raise KeyError(
                 f"Unknown option {key!r} for section [{cls.__section__}]; "
@@ -88,6 +94,16 @@ def coerce_section(cls, raw: dict[str, str]):
             }.get(base.split(".")[-1], str)
             kwargs[key] = coercer(value)
     return cls(**kwargs)
+
+
+# Options that earlier versions accepted, with why each went. A config that
+# still sets one gets this reason instead of a generic unknown-option error.
+_REMOVED = {
+    ("Engine", "tile"): "it sized the replica tiles of the removed fused "
+                        "Pallas backend",
+    ("Engine", "nbr_reuse"): "it switched neighbor-list reuse in the removed "
+                             "fused top-K backend",
+}
 
 
 def _field(parse=None, default=dataclasses.MISSING, default_factory=dataclasses.MISSING):
@@ -217,31 +233,23 @@ class EngineSection:
     max_events_per_frame: int = 4
     block_size: int = 256
     sweeps: Optional[int] = None  # total frames; None = full trajectory
-    # Multi-chip: number of devices to shard the replica axis over.
-    # "auto" (default) = all visible devices on a real TPU backend, 1
-    # elsewhere; "all" = all visible devices on any backend; an integer pins
+    # Multi-device: number of devices to shard the replica axis over.
+    # "auto" (default) = all visible devices unless the platform is the CPU,
+    # 1 there; "all" = all visible devices on any platform; an integer pins
     # the count. replicas must divide evenly.
     devices: str = "auto"
     mesh_axis: str = "replica"  # mesh axis name for the replica dimension
     jumpmatrix_filename: Optional[str] = None  # legacy jumpmatrix capability
     checkpoint_path: Optional[str] = None  # .npz path; resume if it exists
     checkpoint_interval: int = 0  # blocks between checkpoints (0 = end only)
-    backend: str = "auto"  # auto | fused | scan (fused = Pallas sweep kernel)
+    backend: str = "auto"  # auto | scan: both run the scan engine
     equilibration_sweeps: int = 0  # frames before observables start (legacy)
-    tile: Optional[int] = None  # fused replica-tile size; None = auto (128)
     # Reference-style stale in-frame rates (MDMC.py:121-171): intra-frame
-    # events reuse the frame-start rate values/total instead of recomputing
-    # after each event. More reference-faithful AND faster (one fewer MXU
-    # product per event); differs from the scan oracle only at O(rate*dt)
-    # within multi-event frames. Fused streamed backend only.
+    # events draw from the frame-start rate rows (masked by current
+    # occupancy) and the clock integrates the frame-start total, instead of
+    # recomputing after each event. Differs from the default only at
+    # O(rate*dt) within multi-event frames. Dense topologies only.
     stale_rates: bool = False
-    # Verlet candidate-identity reuse on the top-K fused path (auto | on |
-    # off). "auto" enables it at supercell N (>= 1024 sites) for buffered
-    # TopKPairRates, where per-frame identity churn dominates the frame
-    # budget; lists stay frozen between displacement-triggered rebuilds
-    # within the classic coverage bound (docs/DESIGN.md 6b). "off" forces
-    # per-frame rebuilds (the exactness oracle); "on" forces reuse.
-    nbr_reuse: str = "auto"
 
 
 _SECTIONS = {

@@ -1,6 +1,6 @@
 """Time-dependent KMC clock as a per-frame state machine.
 
-TPU-native recast of the reference's pull-based ``fastforward_to_next_jump``
+JAX recast of the reference's pull-based ``fastforward_to_next_jump``
 (LMC/MDMC.py:121-171), the algorithmic core of the cMD/LMC scheme: kinetic Monte
 Carlo with rates that change every MD frame (inhomogeneous Poisson process with
 piecewise-constant rate).
@@ -25,8 +25,8 @@ static; rate·dt ≪ 1 in practice, cf. the a·dt scaling in the reference's leg
 driver KMC/excess_kmc.py:398-401). Rates may be recomputed after each in-frame
 event via the ``rate_fn``/``apply_fn`` callbacks, which is how lattice occupancy
 feeds back into the total rate — the reference keeps the stale frame rate within
-a frame; recomputing is strictly more faithful to the master equation and free
-on TPU.
+a frame; recomputing is strictly more faithful to the master equation; the
+reference's stale form is ``[Engine] stale_rates`` (engine/lattice.py).
 
 Everything is branch-free (masked), so the whole clock vmaps over replicas.
 """

@@ -1,6 +1,6 @@
 """Multi-proton KMC lattice engine: fused per-frame scan step, vmapped replicas.
 
-TPU-native replacement for the reference's ``KMCLattice`` (LMC/MDMC.py:28-226).
+JAX replacement for the reference's ``KMCLattice`` (LMC/MDMC.py:28-226).
 The reference advances ONE lattice by pulling MD frames through a chain of Python
 generators; here one ``lax.scan`` step per MD frame advances THOUSANDS of
 independent replicas (the Monte Carlo analog of data parallelism):
@@ -18,7 +18,9 @@ occupied AND destination free) — becomes
 
     R[r] = occ[r] @ W @ (1 - occ[r])
 
-which under vmap is two MXU matmuls over the replica batch. Transition selection
+which under vmap is one matrix product over the replica batch per frame (in
+full f32: the product is pinned to ``Precision.HIGHEST`` so that no backend
+rounds it to TF32 or bf16). Transition selection
 (``move_proton``'s cumsum / uniform / searchsorted, MDMC.py:101-119) becomes an
 exactly equivalent two-stage categorical draw: source site with probability
 proportional to its allowed outgoing rate-row sum, then destination from that
@@ -38,19 +40,16 @@ from cmdlmc_tpu.engine.clock import ClockState
 from cmdlmc_tpu.topo.models import DenseShared, Frame
 
 Array = jax.Array
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _pytree(cls=None, *, data_fields, meta_fields=()):
     if cls is None:
         return partial(_pytree, data_fields=data_fields, meta_fields=meta_fields)
     cls = dataclasses.dataclass(frozen=True)(cls)
-    cls = jax.tree_util.register_dataclass(
+    return jax.tree_util.register_dataclass(
         cls, data_fields=list(data_fields), meta_fields=list(meta_fields)
     )
-    # the declared split, introspectable by utils/checkpoint.py: meta fields
-    # must come back as hashable python scalars, data fields as arrays
-    cls._meta_fields = tuple(meta_fields)
-    return cls
 
 
 @_pytree(
@@ -71,7 +70,7 @@ def _pytree(cls=None, *, data_fields, meta_fields=()):
 class ReplicaState:
     """Complete per-replica simulation state (one KMC chain).
 
-    occ            f32[N]   1.0 where a proton sits (float for the MXU path)
+    occ            f32[N]   1.0 where a proton sits (float for the rate product)
     proton_of_site i32[N]   proton label 1..P, 0 = empty (reference lattice
                             convention, MDMC.py:68-72)
     site_of_proton i32[P]   inverse map
@@ -140,49 +139,18 @@ class ObsRow:
     msd4_mean: Array
 
 
-@_pytree(data_fields=["ref_pos", "ref_topi", "ref_valid"],
-         meta_fields=["thresh", "last_rebuild", "thrash_until"])
-class NeighborCarry:
-    """Frozen K-nearest candidate lists for Verlet-style table reuse
-    (ops/topk_sweep.py::topk_tables_verlet) — the TPU analog of the
-    reference's neighbor-list reuse (topology.py:80-114: lists built with
-    ``cutoff + buffer`` stay valid while atoms move less than ``buffer/2``).
-
-    ref_pos f32[N,3] — donor positions at the last rebuild (the drift
-    reference); ref_topi f32[KL,N] — candidate site ids frozen at the last
-    rebuild; ref_valid f32[KL,N] — 1.0 where the slot held a real neighbor
-    at rebuild time; thresh — the drift threshold the lists stay valid for
-    (ops/topk_sweep.py::_rebuild_thresh, a python float); last_rebuild —
-    ABSOLUTE frame index of the most recent rebuild; thrash_until — absolute
-    frame index until which the thrash guard rebuilds per frame (both python
-    floats, so the thrash schedule is a pure function of the carry and the
-    absolute frame range — chunking- and checkpoint-invariant). Replica-
-    independent, tiny, and carried inside :class:`EnsembleState` so block
-    chunking, checkpoint/resume and the sharded path all thread it for
-    free."""
-
-    ref_pos: Array
-    ref_topi: Array
-    ref_valid: Array
-    thresh: float = 0.0
-    last_rebuild: float = -1.0e18
-    thrash_until: float = 0.0
-
-
-@_pytree(data_fields=["replicas", "site_disp", "prev_pos", "nbr_carry"])
+@_pytree(data_fields=["replicas", "site_disp", "prev_pos"])
 class EnsembleState:
     """Replica batch plus the shared trajectory-displacement carry.
 
     site_disp f32[N,3] — prefix sum of per-frame minimum-image donor-site
     displacements (identical for every replica; the key to O(events) instead of
     O(P) per-frame MSD bookkeeping). prev_pos f32[N,3] — donor positions of the
-    previous frame. nbr_carry — optional :class:`NeighborCarry` (top-K fused
-    backend with Verlet table reuse; None elsewhere)."""
+    previous frame."""
 
     replicas: ReplicaState
     site_disp: Array
     prev_pos: Array
-    nbr_carry: NeighborCarry | None = None
 
 
 def init_replicas(
@@ -268,6 +236,13 @@ def _cdf_pick(weights: Array, key: Array) -> Array:
     return jnp.minimum(jnp.sum(cdf < u), weights.shape[0] - 1).astype(jnp.int32)
 
 
+def outgoing_rates(W: Array, occ: Array) -> Array:
+    """Allowed outgoing rate of every site of one replica,
+    ``out[i] = sum_j W[i, j] (1 - occ[j])``, in full f32: at the default
+    precision a GPU may round the product to TF32 (~1e-3 relative)."""
+    return jnp.matmul(W, 1.0 - occ, precision=HIGHEST)
+
+
 def _topk_allowed(model, shared, aux, time):
     occ, proton_of_site, _, t_last = aux[0], aux[1], aux[2], aux[3]
     residence = _site_residence(occ, proton_of_site, t_last, time)
@@ -277,7 +252,8 @@ def _topk_allowed(model, shared, aux, time):
 
 
 def _replica_frame_step(
-    model, frame, site_disp, dt, max_events, hist_range, state: ReplicaState, key
+    model, frame, site_disp, dt, max_events, hist_range, state: ReplicaState, key,
+    stale_rates=False,
 ):
     """Advance one replica across one MD frame. ``key`` must be unique per
     replica but MUST NOT vary with the frame (the clock folds in event ordinals,
@@ -287,7 +263,13 @@ def _replica_frame_step(
     rate vector ``out[i] = sum_j W_ij (1 - occ_j)``; in-frame events update it
     incrementally in O(N) (freeing site s adds column W[:, s], filling site d
     subtracts W[:, d]) — the total-rate reduction the clock needs is then just
-    ``sum(occ * out)`` per iteration instead of a fresh matmul."""
+    ``sum(occ * out)`` per iteration instead of a fresh matmul.
+
+    ``stale_rates`` (dense only) is the reference's in-frame semantics
+    (MDMC.py:121-171): the allowed-rate rows ``occ * out`` and their total are
+    built once per frame; in-frame events draw the source from those rows
+    masked by CURRENT occupancy and the destination from the current
+    vacancies, while the clock integrates the frame-start total."""
     shared = model.shared(frame)
     n_bins = state.jump_hist.shape[0]
     track_matrix = state.jump_matrix.shape[0] > 0
@@ -295,7 +277,9 @@ def _replica_frame_step(
     if dense:
         W = shared.W
         WT = shared.W.T
-        out0 = W @ (1.0 - state.occ)
+        out0 = outgoing_rates(W, state.occ)
+        row0 = state.occ * out0
+        total0 = row0.sum()
     else:
         out0 = jnp.zeros((0,), jnp.float32)  # unused
 
@@ -313,6 +297,8 @@ def _replica_frame_step(
 
     def rate_fn(aux):
         occ, out = aux[0], aux[4]
+        if stale_rates:
+            return total0
         if dense:
             return (occ * out).sum()
         allowed, _ = _topk_allowed(model, shared, aux, frame.time)
@@ -323,8 +309,10 @@ def _replica_frame_step(
          disp_base) = aux
         k1, k2 = jax.random.split(event_key)
         if dense:
-            src = _cdf_pick(occ * out, k1)
-            dst = _cdf_pick(W[src] * (1.0 - occ), k2)
+            src_w = row0 * occ if stale_rates else occ * out
+            src = _cdf_pick(src_w, k1)
+            dst_w = W[src] * (1.0 - occ)
+            dst = _cdf_pick(dst_w, k2)
             d_evt = shared.dist[src, dst]
             out = out + WT[src] - WT[dst]
         else:
@@ -355,8 +343,16 @@ def _replica_frame_step(
             hist = hist.at[_hist_bin(d_evt, hist_range, n_bins)].add(inc)
         if track_matrix:
             jmat = jmat.at[src, dst].add(1)
-        return (occ, proton_of_site, site_of_proton, t_last, out,
-                jumps + 1, hist, jmat, disp_base)
+        new = (occ, proton_of_site, site_of_proton, t_last, out,
+               jumps + 1, hist, jmat, disp_base)
+        if stale_rates:
+            # the frame-start total can outlive every allowed move (the
+            # movers' new sites carry no stale row): such a draw moves nothing
+            movable = (src_w.sum() > 0) & (dst_w.sum() > 0)
+            new = jax.tree.map(
+                lambda n, o: jnp.where(movable, n, o), new, aux
+            )
+        return new
 
     new_clock, aux, n_fired = kmc_clock.frame_step(
         state.clock,
@@ -500,14 +496,21 @@ def _reset_states(states: ReplicaState, site_disp):
 
 def _block_scan(model, cell, ens, keys, frames, dt, max_events,
                 reset_frequency, hist_range, emit_every, with_sites,
-                equilibration=0, variance_mode="replicas"):
+                equilibration=0, variance_mode="replicas", stale_rates=False):
+    if stale_rates and model.per_replica:
+        raise ValueError(
+            "stale_rates applies to dense rate models (PairRates, "
+            f"AnglePairRates), not {type(model).__name__}"
+        )
+
     def step(carry, frame):
         states, site_disp, prev_pos = carry
         site_disp = site_disp + cell_displacement(cell, prev_pos, frame.donors)
 
         def per_replica(state, key):
             return _replica_frame_step(
-                model, frame, site_disp, dt, max_events, hist_range, state, key
+                model, frame, site_disp, dt, max_events, hist_range, state, key,
+                stale_rates,
             )
 
         states, n_fired = jax.vmap(per_replica)(states, keys)
@@ -556,7 +559,8 @@ def _block_scan(model, cell, ens, keys, frames, dt, max_events,
 @partial(
     jax.jit,
     static_argnames=("dt", "max_events", "reset_frequency", "hist_range",
-                     "emit_every", "equilibration", "variance_mode"),
+                     "emit_every", "equilibration", "variance_mode",
+                     "stale_rates"),
 )
 def run_block(
     model,
@@ -572,6 +576,7 @@ def run_block(
     emit_every: int = 1,
     equilibration: int = 0,
     variance_mode: str = "replicas",
+    stale_rates: bool = False,
 ) -> tuple[EnsembleState, ObsRow]:
     """Advance all replicas across a block of frames (stacked leading axis).
 
@@ -583,13 +588,13 @@ def run_block(
     return _block_scan(model, cell, ens, keys, frames, dt, max_events,
                        reset_frequency, hist_range, emit_every,
                        with_sites=False, equilibration=equilibration,
-                       variance_mode=variance_mode)
+                       variance_mode=variance_mode, stale_rates=stale_rates)
 
 
 @partial(
     jax.jit,
     static_argnames=("dt", "max_events", "reset_frequency", "hist_range",
-                     "emit_every", "equilibration"),
+                     "emit_every", "equilibration", "stale_rates"),
 )
 def run_block_with_sites(
     model,
@@ -604,11 +609,13 @@ def run_block_with_sites(
     hist_range: tuple = (2.0, 3.0),
     emit_every: int = 1,
     equilibration: int = 0,
+    stale_rates: bool = False,
 ):
     """Like :func:`run_block`, additionally emitting replica 0's proton site
     indices per frame — feeds the XYZOutput mode (MDMC.py:173-177)."""
     ens, (rows, sites) = _block_scan(
         model, cell, ens, keys, frames, dt, max_events, reset_frequency,
         hist_range, emit_every, with_sites=True, equilibration=equilibration,
+        stale_rates=stale_rates,
     )
     return ens, rows, sites

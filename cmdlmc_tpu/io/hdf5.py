@@ -12,12 +12,25 @@ from __future__ import annotations
 import logging
 from typing import Iterator
 
-import h5py
 import numpy as np
 
 from cmdlmc_tpu.io.frames import HostFrame
 
 logger = logging.getLogger(__name__)
+
+
+def _h5py():
+    """h5py is an optional dependency (``pip install cmdlmc-tpu[hdf5]``):
+    imported on first use so that xyz-only runs never need it."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "HDF5 trajectories need the h5py package, which is not installed "
+            "(pip install h5py, or use an xyz trajectory)"
+        ) from e
+    return h5py
+
 
 TRAJECTORY_KEY = "trajectory"
 ATOMNAMES_KEY = "atom_names"
@@ -52,7 +65,7 @@ class HDF5Trajectory:
         self.shuffle_seed = shuffle_seed
         self._current_frame_number = 0
 
-        with h5py.File(filename, "r") as f:
+        with _h5py().File(filename, "r") as f:
             names = f[ATOMNAMES_KEY][:]
         self.atom_names = names.astype("U4")
 
@@ -78,7 +91,7 @@ class HDF5Trajectory:
             yield from self._iter_shuffled(names)
             return
         while True:
-            with h5py.File(self.filename, "r") as f:
+            with _h5py().File(self.filename, "r") as f:
                 traj = f[TRAJECTORY_KEY]
                 n = traj.shape[0]
                 if self.clip is not None:
@@ -105,7 +118,7 @@ class HDF5Trajectory:
         """Legacy 'shuffle' mode (IO/config_parser.py:275-281): an endless,
         seeded stream of uniformly random frames."""
         rng = np.random.default_rng(self.shuffle_seed)
-        with h5py.File(self.filename, "r") as f:
+        with _h5py().File(self.filename, "r") as f:
             traj = f[TRAJECTORY_KEY]
             n = traj.shape[0]
             if self.clip is not None:
@@ -131,7 +144,7 @@ class HDF5Trajectory:
                 )
 
     def __len__(self):
-        with h5py.File(self.filename, "r") as f:
+        with _h5py().File(self.filename, "r") as f:
             n = f[TRAJECTORY_KEY].shape[0]
         if self.clip is not None:
             n = min(n, self.clip)
@@ -153,9 +166,10 @@ def _compression_kwargs():
     is an h5py-native filter: files are portable across h5py installs but
     not to non-Python HDF5 tools — pass gzip explicitly via h5py if that
     matters more than stream speed."""
-    if h5py.h5z.filter_avail(BLOSC_FILTER):
+    h5z = _h5py().h5z
+    if h5z.filter_avail(BLOSC_FILTER):
         return {"compression": BLOSC_FILTER}
-    if h5py.h5z.filter_avail(h5py.h5z.FILTER_LZF):
+    if h5z.filter_avail(h5z.FILTER_LZF):
         return {"compression": "lzf", "shuffle": True}
     return {"compression": "gzip", "compression_opts": 4}
 
@@ -175,7 +189,7 @@ def compression_kwargs(compression: str = "auto") -> dict:
     if compression in ("none", "raw"):
         return {}
     if compression == "blosc":
-        if not h5py.h5z.filter_avail(BLOSC_FILTER):
+        if not _h5py().h5z.filter_avail(BLOSC_FILTER):
             raise ValueError("Blosc HDF5 filter (32001) is not available")
         return {"compression": BLOSC_FILTER}
     if compression == "lzf":
@@ -205,7 +219,7 @@ def write_trajectory(
     write covers whole compressed chunks — frame-by-frame writes re-compress
     every chunk per frame and are ~100x slower at scale. ``compression``:
     see :func:`compression_kwargs` (``none`` = the streaming fast layout)."""
-    with h5py.File(hdf5_fname, "w") as f:
+    with _h5py().File(hdf5_fname, "w") as f:
         names_bytes = np.asarray(atom_names).astype("S4")
         ds_names = f.create_dataset(ATOMNAMES_KEY, names_bytes.shape, dtype="S4")
         ds_names[:] = names_bytes

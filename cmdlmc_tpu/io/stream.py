@@ -1,7 +1,7 @@
 """Host -> device frame streaming.
 
 The reference pulls one frame at a time through a generator chain
-(trajectory_parser.py:217-249); at TPU throughput that starves the device. Here
+(trajectory_parser.py:217-249); at accelerator throughput that starves the device. Here
 trajectory batches are re-blocked into fixed-size position blocks and prefetched
 on a background thread, so host parsing/IO overlaps with device compute
 (double buffering). The engine consumes :class:`FrameBlock`s and turns them into

@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from cmdlmc_tpu.core.cell import Cell
-from cmdlmc_tpu.engine import fused as eng_fused, lattice as eng
+from cmdlmc_tpu.engine import lattice as eng
 from cmdlmc_tpu.rates.laws import Fermi, FermiAngle
 from cmdlmc_tpu.topo.models import AnglePairRates, Frame, PairRates
 
@@ -30,7 +30,6 @@ class SolidAcidModel:
     ensemble: eng.EnsembleState
     keys: jax.Array
     dt: float
-    seed: int = 0
 
     @classmethod
     def create(
@@ -80,7 +79,7 @@ class SolidAcidModel:
         keys = jax.random.split(jax.random.fold_in(key, 1), n_replicas)
         return cls(
             cell=cell, rate_model=rate_model, ensemble=ensemble, keys=keys,
-            dt=dt, seed=seed,
+            dt=dt,
         )
 
     def advance(
@@ -92,27 +91,8 @@ class SolidAcidModel:
         reset_frequency: int = 0,
         emit_every: int = 1,
         max_events: int = 4,
-        backend: str = "auto",
     ):
-        """Advance the ensemble over a frame block. Returns per-frame ObsRows
-        on the scan backend, None on the fused backend (read observables from
-        the ensemble via cmdlmc_tpu.observables)."""
-        use_fused = backend == "fused" or (
-            backend == "auto"
-            and jax.default_backend() == "tpu"
-            and eng_fused.fused_supported(self.rate_model, self.cell, self.ensemble)
-        )
-        if use_fused:
-            self.ensemble = eng_fused.run_block_fused(
-                self.rate_model, self.cell, self.ensemble,
-                jnp.asarray(donor_positions, jnp.float32), frame0,
-                dt=self.dt, max_events=max_events, seed=self.seed,
-                extras_positions=(
-                    None if extras is None
-                    else jnp.asarray(extras, jnp.float32)
-                ),
-            )
-            return None
+        """Advance the ensemble over a frame block; returns per-frame ObsRows."""
         pos = jnp.asarray(donor_positions, jnp.float32)
         idx = jnp.arange(frame0, frame0 + pos.shape[0], dtype=jnp.int32)
         frames = Frame(

@@ -1,6 +1,6 @@
 """Single-excess-proton water KMC (the legacy "KMCWater" scheme).
 
-TPU-native re-provision of the reference's excess-proton driver
+JAX re-provision of the reference's excess-proton driver
 (KMC/excess_kmc.py:157-471) and its deleted Cython helper: one excess proton
 hops between the K nearest oxygen neighbors of its current site, with
 
@@ -282,250 +282,3 @@ def run_water_block(
 
     states, (sites, msd) = jax.lax.scan(step, states, (positions_block, frame_indices))
     return states, sites, msd
-
-
-# ----------------------------------------------------------------------------
-# Fused-kernel backend (ops/water_sweep.py)
-# ----------------------------------------------------------------------------
-
-
-def water_fused_supported(model: WaterModel) -> bool:
-    """Kernel applicability: orthorhombic cell, kernel-known law, any of the
-    four rescale modes (none / linear / ramp / interpolated table up to
-    MAX_INTERP_POINTS), incl. ``check_from_old`` (round 3: the legacy
-    ``conversion_data`` and ``check_from_old`` keys no longer silently drop
-    to the ~3.7x-slower scan backend — VERDICT r2 #6)."""
-    from cmdlmc_tpu.ops import kmc_sweep as ks, water_sweep as ws
-    from cmdlmc_tpu.topo import transforms as tr
-
-    if not model.cell.orthorhombic:
-        return False
-    if ks.law_kind(model.law) is None:
-        return False
-    if model.n_atoms not in (3, 4):
-        return False
-    t = model.transform
-    if t is not None and not isinstance(
-        t,
-        (tr.LinearTransformation, tr.ReLUTransformation,
-         tr.InterpolatedTransformation),
-    ):
-        return False
-    if (
-        isinstance(t, tr.InterpolatedTransformation)
-        and t.x.shape[0] > ws.MAX_INTERP_POINTS
-    ):
-        return False
-    return True
-
-
-def _transform_spec(model: WaterModel):
-    """(tkind, params[5], interp_x, interp_y) for the kernel."""
-    from cmdlmc_tpu.ops import water_sweep as ws
-    from cmdlmc_tpu.topo import transforms as tr
-
-    t = model.transform
-    zeros5 = jnp.zeros(5, jnp.float32)
-    if t is None:
-        return ws.T_NONE, zeros5, None, None
-    if isinstance(t, tr.LinearTransformation):
-        return ws.T_LINEAR, jnp.stack(
-            [t.a, t.b, jnp.float32(0.0), t.left_bound, t.right_bound]
-        ).astype(jnp.float32), None, None
-    if isinstance(t, tr.ReLUTransformation):
-        return ws.T_RAMP, jnp.stack(
-            [t.a, t.b, t.d0, t.left_bound, t.right_bound]
-        ).astype(jnp.float32), None, None
-    if isinstance(t, tr.InterpolatedTransformation):
-        return (ws.T_INTERP, zeros5, jnp.asarray(t.x, jnp.float32),
-                jnp.asarray(t.y, jnp.float32))
-    raise ValueError(f"Unsupported transform {type(t)}")
-
-
-def run_water_block_fused(
-    model: WaterModel,
-    states: WaterState,
-    positions_block,  # [B, N, 3]
-    frame0: int,
-    *,
-    site_disp,  # [N, 3] shared displacement prefix at block start
-    prev_pos,  # [N, 3] positions of the frame before the block
-    dt: float,
-    max_events: int = 4,
-    seed: int = 0,
-    tile: int | None = None,
-    interpret: bool | None = None,
-    tile_offset: int = 0,
-    return_truncation: bool = False,
-    layout: str | None = None,
-):
-    """Advance the water ensemble with the fused Pallas kernel.
-
-    Returns (states', site_disp', prev_pos') — plus the per-replica count of
-    event-budget-exhausted frames when ``return_truncation`` is set. The
-    snapshot/displacement fields are converted to/from the kernel's rebased
-    form at the block boundaries, so the WaterState contract is unchanged.
-    ``layout=None`` auto-picks: replicas-major "rows" in interpret/CPU (the
-    oracle-tested default), candidates-major "cols" on TPU — the water event
-    loop is dominated by [TR, 8]/[TR, 1] tensors that pad to 128 lanes in
-    rows layout (16x dead VPU work; see ops/water_sweep.py).
-    """
-    from cmdlmc_tpu.engine.fused import pick_tile
-    from cmdlmc_tpu.ops import kmc_sweep as ks
-    from cmdlmc_tpu.ops import water_sweep as ws
-
-    R = states.site.shape[0]
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if layout is None:
-        layout = "rows" if interpret else "cols"
-    if tile is None:
-        # cols layout: the per-frame [N, N] distance + top-K table build is
-        # shared per TILE, so bigger tiles amortize it — TR=256 measured
-        # 9.65 G vs 3.55 G at TR=128 (N=216, R=8192 v5e); TR=512 regresses
-        # (5.9 G, event-loop vreg pressure)
-        tile = pick_tile(R, target=256 if layout == "cols" else 128,
-                         n_sites=positions_block.shape[1])
-
-    tkind, tparams, tx, ty = _transform_spec(model)
-    site_disp = jnp.asarray(site_disp, jnp.float32)
-    prev_pos = jnp.asarray(prev_pos, jnp.float32)
-
-    # entry conversion: displacement = A + S[site] + corr
-    a_in = states.displacement - site_disp[states.site] - states.correction
-
-    (site, last, fsj, wait, jumps, evc, u, corr, a_out, s_out, prev_out,
-     trunc) = (
-        ws.water_sweep(
-            jnp.asarray(positions_block, jnp.float32),
-            prev_pos, site_disp,
-            states.site, states.last_site, states.frames_since_jump,
-            states.wait_left, states.jumps, states.clock.event_count,
-            states.clock.u_remaining,
-            states.correction, a_in,
-            ks.law_params_array(model.law), tparams,
-            jnp.int32(frame0), jnp.diagonal(model.cell.h),
-            jnp.int32(tile_offset),
-            interp_x=tx, interp_y=ty,
-            kind=ks.law_kind(model.law), tkind=tkind,
-            k_atoms=model.n_atoms, tile=tile, max_events=max_events,
-            dt=float(dt), seed=int(seed),
-            relax=int(model.relaxation_time), waiting=int(model.waiting_time),
-            keep_last=bool(model.keep_last_neighbor_rescaled),
-            check_old=bool(model.check_from_old),
-            d_oh=float(model.d_oh), interpret=bool(interpret),
-            layout=layout,
-        )
-    )
-    displacement = a_out + s_out[site] + corr
-    snapshot = prev_out[site] + corr
-    clock = dataclasses.replace(
-        states.clock, u_remaining=u, event_count=evc
-    )
-    new_states = WaterState(
-        site=site, last_site=last, frames_since_jump=fsj, wait_left=wait,
-        correction=corr, clock=clock, jumps=jumps, snapshot=snapshot,
-        displacement=displacement,
-    )
-    if return_truncation:
-        return new_states, s_out, prev_out, trunc
-    return new_states, s_out, prev_out
-
-
-def run_water_block_fused_sharded(
-    model: WaterModel,
-    states: WaterState,
-    positions_block,  # [B, N, 3] (replicated)
-    frame0: int,
-    mesh,
-    *,
-    axis: str = "replica",
-    site_disp,  # [N, 3]
-    prev_pos,  # [N, 3]
-    dt: float,
-    max_events: int = 4,
-    seed: int = 0,
-    tile: int | None = None,
-    interpret: bool | None = None,
-    layout: str | None = None,
-):
-    """Multi-chip water sweep: shard the replica axis over the mesh and run
-    the water kernel per device under shard_map. Tile ids are offset per
-    shard, so results are bit-identical to a single-device run with the same
-    tile size AND layout (same contract as engine/fused.run_block_fused_sharded;
-    layout auto-picks the same way as run_water_block_fused)."""
-    from jax.sharding import PartitionSpec as P
-
-    from cmdlmc_tpu.engine.fused import pick_tile
-    from cmdlmc_tpu.ops import kmc_sweep as ks
-    from cmdlmc_tpu.ops import water_sweep as ws
-
-    n_dev = mesh.shape[axis]
-    R = states.site.shape[0]
-    assert R % n_dev == 0, (R, n_dev)
-    local_r = R // n_dev
-    use_interp = bool(
-        interpret if interpret is not None else jax.default_backend() != "tpu"
-    )
-    if layout is None:
-        layout = "rows" if use_interp else "cols"
-    if tile is None:
-        tile = pick_tile(local_r, target=256 if layout == "cols" else 128,
-                         n_sites=positions_block.shape[1])
-    assert local_r % tile == 0, (local_r, tile)
-    tiles_per_dev = local_r // tile
-    tkind, tparams, tx, ty = _transform_spec(model)
-    positions = jnp.asarray(positions_block, jnp.float32)
-    site_disp = jnp.asarray(site_disp, jnp.float32)
-    prev_pos = jnp.asarray(prev_pos, jnp.float32)
-
-    def local(site, last, fsj, wait, jumps, evc, u, corr, disp,
-              sd, pp, pos):
-        idx = jax.lax.axis_index(axis)
-        a_in = disp - sd[site] - corr
-        return ws.water_sweep(
-            pos, pp, sd,
-            site, last, fsj, wait, jumps, evc, u, corr, a_in,
-            ks.law_params_array(model.law), tparams,
-            jnp.int32(frame0), jnp.diagonal(model.cell.h),
-            idx * tiles_per_dev,
-            interp_x=tx, interp_y=ty,
-            kind=ks.law_kind(model.law), tkind=tkind,
-            k_atoms=model.n_atoms, tile=tile, max_events=max_events,
-            dt=float(dt), seed=int(seed),
-            relax=int(model.relaxation_time), waiting=int(model.waiting_time),
-            keep_last=bool(model.keep_last_neighbor_rescaled),
-            check_old=bool(model.check_from_old),
-            d_oh=float(model.d_oh), interpret=use_interp,
-            layout=layout,
-        )
-
-    out_specs = tuple(
-        [P(axis)] * 9 + [P(), P(), P(axis)]
-    )  # site..disp_base sharded; site_disp/prev replicated; trunc sharded
-    (site, last, fsj, wait, jumps, evc, u, corr, a_out, s_out, prev_out,
-     trunc) = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(
-            P(axis), P(axis), P(axis), P(axis), P(axis), P(axis), P(axis),
-            P(axis), P(axis),
-            P(), P(), P(),
-        ),
-        out_specs=out_specs,
-        check_vma=False,
-    )(
-        states.site, states.last_site, states.frames_since_jump,
-        states.wait_left, states.jumps, states.clock.event_count,
-        states.clock.u_remaining, states.correction, states.displacement,
-        site_disp, prev_pos, positions,
-    )
-    displacement = a_out + s_out[site] + corr
-    snapshot = prev_out[site] + corr
-    clock = dataclasses.replace(states.clock, u_remaining=u, event_count=evc)
-    new_states = WaterState(
-        site=site, last_site=last, frames_since_jump=fsj, wait_left=wait,
-        correction=corr, clock=clock, jumps=jumps, snapshot=snapshot,
-        displacement=displacement,
-    )
-    return new_states, s_out, prev_out

@@ -5,7 +5,7 @@
 // host cost when streaming millions of frames. This tokenizer turns a text
 // block of atom lines ("name x y z\n" each) into a float32 position array in
 // one pass, ~50-100x faster than per-frame genfromtxt, so the host never
-// starves the TPU.
+// starves the device.
 //
 // Built as a shared library (see build.py) and bound via ctypes — no pybind11
 // dependency.

@@ -5,11 +5,12 @@ MPI/NCCL/threads anywhere); its only scaling story was "run many seeds by hand
 and average offline" (average_MC_out.py:115-125). Here the replica axis is a
 first-class sharded dimension: per-replica state is laid out with a
 ``NamedSharding`` over a 1-D mesh, the jitted engine partitions automatically
-under GSPMD, and the only cross-chip traffic is the tiny per-frame observable
-all-reduce (mean/var over replicas), which rides ICI.
+under GSPMD, and the only cross-device traffic is the tiny per-frame
+observable all-reduce (mean/var over replicas).
 
-Trajectory frames are replicated to every chip (they are identical for all
-replicas) — host -> device streaming is the only DCN involvement.
+Trajectory frames are replicated to every device (they are identical for all
+replicas). The mesh is 1-D over the replica axis: every device pair is
+equally close, so no other shape is needed.
 """
 
 from __future__ import annotations
@@ -62,12 +63,4 @@ def shard_ensemble(ens, mesh: Mesh, axis: str = REPLICA_AXIS):
         replicas=shard_replicas(ens.replicas, mesh, axis),
         site_disp=jax.device_put(ens.site_disp, NamedSharding(mesh, P())),
         prev_pos=jax.device_put(ens.prev_pos, NamedSharding(mesh, P())),
-        nbr_carry=(
-            None if ens.nbr_carry is None
-            # replica-independent: replicate like the trajectory carry
-            else jax.tree.map(
-                lambda x: jax.device_put(x, NamedSharding(mesh, P())),
-                ens.nbr_carry,
-            )
-        ),
     )

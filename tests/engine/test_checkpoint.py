@@ -136,41 +136,3 @@ def test_water_checkpoint_roundtrip(tmp_path):
     np.testing.assert_array_equal(
         np.asarray(s_full.clock.event_count), np.asarray(s_resumed.clock.event_count)
     )
-
-
-def test_checkpoint_forward_compat_defaults(tmp_path):
-    """A checkpoint written before a defaulted scalar field existed (e.g.
-    NeighborCarry.last_rebuild/thrash_until) restores with the dataclass
-    default, and declared pytree META fields come back as hashable python
-    scalars regardless of their default's type."""
-    import dataclasses
-
-    from cmdlmc_tpu.engine.lattice import NeighborCarry
-
-    cell, model, positions, states, keys = build()
-    carry = NeighborCarry(
-        ref_pos=jnp.asarray(positions),
-        ref_topi=jnp.zeros((4, 10), jnp.float32),
-        ref_valid=jnp.ones((4, 10), jnp.float32),
-        thresh=0.75, last_rebuild=123.0, thrash_until=251.0,
-    )
-    states = dataclasses.replace(states, nbr_carry=carry)
-    path = str(tmp_path / "c.npz")
-    save_checkpoint(path, states, keys, 9)
-    # simulate the pre-field format: strip the new scalar keys
-    data = dict(np.load(path))
-    for k in ("state.nbr_carry.last_rebuild", "state.nbr_carry.thrash_until"):
-        assert k in data
-        del data[k]
-    np.savez(path, **data)
-    loaded, _k, frame, _m = load_checkpoint(path)
-    c = loaded.nbr_carry
-    assert type(c.thresh) is float and c.thresh == 0.75
-    fields = {f.name: f for f in dataclasses.fields(NeighborCarry)}
-    assert c.last_rebuild == fields["last_rebuild"].default
-    assert c.thrash_until == fields["thrash_until"].default
-    # full-format roundtrip: meta scalars restored as python floats
-    save_checkpoint(path, states, keys, 9)
-    loaded2, *_ = load_checkpoint(path)
-    assert type(loaded2.nbr_carry.last_rebuild) is float
-    assert loaded2.nbr_carry.thrash_until == 251.0

@@ -1,8 +1,7 @@
 """Golden-data scenarios: the five BASELINE.json configurations as
 deterministic, self-contained runs (synthetic seeded trajectories + fixed
 engine seeds). Used by tools/make_golden.py to freeze reference curves and by
-test_golden.py to assert they never drift (BASELINE.md plan; VERDICT round-1
-item 4).
+test_golden.py to assert they never drift (BASELINE.md plan).
 
 Each scenario returns a dict of named float arrays (the observable curves).
 Everything is CPU-sized; determinism comes from the event-ordinal threefry
@@ -192,71 +191,12 @@ def scenario_5_supercell_autocorr(tmp):
     return _columns(_run_config(cfg))
 
 
-def _fused(cfg: str, tile: int, extra: str = "") -> str:
-    """Force the fused Pallas backend (interpret mode on CPU — deterministic
-    hash RNG keyed by (seed, global tile, frame, event))."""
-    return cfg.replace(
-        "backend = scan", f"backend = fused\ntile = {tile}\n{extra}"
-    )
-
-
-def scenario_1_fused_dense(tmp):
-    """Config 1 on the fused DENSE IN-KERNEL sweep (ops/kmc_sweep.py):
-    replicas/tile = 2 tiles keeps the auto-promotion (R >= 16*tile) from
-    switching to the streamed kernel. Freezes the in-kernel RNG keying and
-    event semantics absolutely (VERDICT r2 #4 — relative tests alone can't
-    catch a drift applied consistently across kernels)."""
-    n_side, spacing = 4, 2.5
-    g = np.array(
-        [[i, j, k] for i in range(n_side) for j in range(n_side)
-         for k in range(n_side)], dtype=np.float32
-    ) * spacing
-    traj = os.path.join(tmp, "s1f.xyz")
-    _write_xyz(traj, ["O"] * 64, np.repeat(g[None], 200, axis=0))
-    cfg = _INI.format(
-        traj=traj, box=n_side * spacing, mult="", law="Constant",
-        law_params="a = 0.02", sites=64, protons=1, pf=20, rf=0,
-        replicas=32, bs=50,
-    )
-    return _columns(_run_config(_fused(cfg, tile=16)))
-
-
-def scenario_2_fused_streamed(tmp):
-    """Config 2 on the fused STREAMED-W sweep (ops/kmc_sweep_streamed.py):
-    tile=2 -> 16 tiles engages the R >= 16*tile streamed promotion."""
-    names, frames = _solid_acid_frames()
-    traj = os.path.join(tmp, "s2f.xyz")
-    _write_xyz(traj, names, frames)
-    cfg = _INI.format(
-        traj=traj, box=10.0, mult="", law="Fermi", law_params=FERMI,
-        sites=16, protons=1, pf=20, rf=0, replicas=32, bs=40,
-    )
-    return _columns(_run_config(_fused(cfg, tile=2)))
-
-
-def scenario_5_fused_topk(tmp):
-    """Config 5's supercell on the fused TOP-K sweep (ops/topk_sweep.py):
-    max_neighbors routes to TopKPairRates."""
-    names, frames = _solid_acid_frames(n_p=2, n_o=8, seed=31)
-    traj = os.path.join(tmp, "s5f.xyz")
-    _write_xyz(traj, names, frames)
-    cfg = _INI.format(
-        traj=traj, box=10.0, mult="box_multiplier = 2,2,2", law="Fermi",
-        law_params=FERMI, sites=64, protons=16, pf=20, rf=60,
-        replicas=16, bs=30,
-    ).replace("buffer = 2.0", "buffer = 2.0\nmax_neighbors = 8")
-    return _columns(_run_config(_fused(cfg, tile=8)))
-
-
 SCENARIOS = {
     "config1_constant_walk": scenario_1_constant_walk,
     "config2_fermi_single": scenario_2_fermi_single_proton,
     "config3_jumpstat": scenario_3_multiproton_jumpstat,
     "config4_ensemble": scenario_4_ensemble_conductivity,
     "config5_supercell": scenario_5_supercell_autocorr,
-    "config1_fused_dense": scenario_1_fused_dense,
-    "config2_fused_streamed": scenario_2_fused_streamed,
-    "config5_fused_topk": scenario_5_fused_topk,
 }
 
 

@@ -1,8 +1,8 @@
-"""End-to-end multi-chip through the driver (VERDICT r2 #1): `mdmc config.ini`
-with [Engine] devices > 1 shards the replica axis over the mesh and produces
-output bit-identical to the single-device run (same tile size), for both the
-fused (shard_map, per-shard tile-id offsets) and scan (GSPMD) backends —
-exercised here on the virtual 8-device CPU mesh."""
+"""End-to-end multi-device through the driver: `mdmc config.ini` with
+[Engine] devices > 1 shards the replica axis over the mesh and produces output
+bit-identical to the single-device run, for the dense and the top-K topology
+(the scan engine partitions under GSPMD) — exercised here on the virtual
+8-device CPU mesh."""
 
 import io
 import os
@@ -31,6 +31,7 @@ periodic_boundaries = 10, 10, 10
 type = NeighborTopology
 cutoff = 3.0
 buffer = 2.0
+{topo_extra}
 
 [JumpRate]
 type = Fermi
@@ -49,10 +50,8 @@ print_frequency = 6
 replicas = 8
 seed = 1
 block_size = 12
-backend = {backend}
 devices = {devices}
 mesh_axis = {mesh_axis}
-tile = 1
 {extra}
 """
 
@@ -70,10 +69,13 @@ def traj(tmp_path_factory):
     return str(path)
 
 
-def run(traj, backend, devices, mesh_axis="replica", extra=""):
+TOPOLOGIES = {"dense": "", "topk": "max_neighbors = 4"}
+
+
+def run(traj, devices, mesh_axis="replica", extra="", topology="dense"):
     cfg = load_config(io.StringIO(CFG.format(
-        traj=traj, n_sites=N_SITES, backend=backend, devices=devices,
-        mesh_axis=mesh_axis, extra=extra,
+        traj=traj, n_sites=N_SITES, devices=devices, mesh_axis=mesh_axis,
+        extra=extra, topo_extra=TOPOLOGIES[topology],
     )))
     out = io.StringIO()
     sim = Simulation(cfg)
@@ -85,10 +87,10 @@ def run(traj, backend, devices, mesh_axis="replica", extra=""):
     return rows, sim
 
 
-@pytest.mark.parametrize("backend", ["fused", "scan"])
-def test_driver_multichip_bit_identical(traj, backend):
-    rows1, _ = run(traj, backend, devices=1)
-    rows8, sim8 = run(traj, backend, devices=8)
+@pytest.mark.parametrize("topology", sorted(TOPOLOGIES))
+def test_driver_multichip_bit_identical(traj, topology):
+    rows1, _ = run(traj, devices=1, topology=topology)
+    rows8, sim8 = run(traj, devices=8, topology=topology)
     assert rows1 == rows8
     # the final states really are sharded over the mesh
     assert not sim8.final_states.replicas.occ.sharding.is_fully_replicated
@@ -96,9 +98,9 @@ def test_driver_multichip_bit_identical(traj, backend):
 
 def test_driver_multichip_mesh_axis_name(traj):
     """[Engine] mesh_axis names the replica mesh axis (the knob is consumed,
-    not dead — VERDICT r2 weak #5)."""
-    rows, sim = run(traj, "fused", devices=8, mesh_axis="chips")
-    rows_default, _ = run(traj, "fused", devices=8)
+    not dead)."""
+    rows, sim = run(traj, devices=8, mesh_axis="chips")
+    rows_default, _ = run(traj, devices=8)
     assert rows == rows_default
     sharding = sim.final_states.replicas.occ.sharding
     assert tuple(sharding.mesh.axis_names) == ("chips",)
@@ -107,27 +109,27 @@ def test_driver_multichip_mesh_axis_name(traj):
 def test_driver_devices_validation(traj):
     # replicas=8 not divisible by 3 devices
     with pytest.raises(ValueError, match="divisible"):
-        run(traj, "scan", devices=3)
+        run(traj, devices=3)
     with pytest.raises(ValueError, match="devices"):
-        run(traj, "scan", devices=100)
+        run(traj, devices=100)
     with pytest.raises(ValueError, match="devices"):
-        run(traj, "scan", devices="never")
+        run(traj, devices="never")
 
 
 def test_driver_multichip_checkpoint_resume(traj, tmp_path):
     """Checkpoint written by a sharded run resumes bit-exactly (states are
     gathered to host on save and re-sharded on load)."""
     ckpt = str(tmp_path / "ck.npz")
-    full_rows, _ = run(traj, "fused", devices=8)
+    full_rows, _ = run(traj, devices=8)
 
     # first half: sweeps=12 = one block, checkpoint at the end
     extra = f"sweeps = 12\ncheckpoint_path = {ckpt}\ncheckpoint_interval = 1"
-    run(traj, "fused", devices=8, extra=extra)
+    run(traj, devices=8, extra=extra)
     assert os.path.exists(ckpt)
 
     # resume for the rest; rows produced after resume must match the tail of
     # the uninterrupted run
     extra2 = f"checkpoint_path = {ckpt}\ncheckpoint_interval = 1"
-    resumed_rows, _ = run(traj, "fused", devices=8, extra=extra2)
+    resumed_rows, _ = run(traj, devices=8, extra=extra2)
     assert resumed_rows == full_rows[-len(resumed_rows):]
     assert len(resumed_rows) > 0

@@ -91,7 +91,7 @@ def test_solid_acid_model_api():
         cutoff=4.0, buffer=1.0, seed=2,
     )
     block = np.broadcast_to(donors, (100, 16, 3))
-    rows = model.advance(block, 0, backend="scan", emit_every=50)
+    rows = model.advance(block, 0, emit_every=50)
     assert rows is not None
     msd = obs.mean_square_displacement(model.ensemble)
     assert msd.shape == (8, 3)
@@ -100,9 +100,9 @@ def test_solid_acid_model_api():
     assert np.all(np.asarray(moments[4]) >= 0)
 
 
-def test_solid_acid_angle_fused_backend_forwards_extras():
-    """Round-2 review regression: backend="fused" with an angle-gated model
-    must forward extras_positions to run_block_fused (it used to raise)."""
+def test_solid_acid_angle_model_forwards_extras():
+    """An angle-gated model must forward the extra-atom block to the engine
+    (the P-O-O angle needs the P positions of every frame)."""
     import numpy as np
 
     from cmdlmc_tpu.models.solid_acid import SolidAcidModel
@@ -118,6 +118,7 @@ def test_solid_acid_angle_fused_backend_forwards_extras():
     F = 6
     dblock = donors[None] + rng.normal(scale=0.02, size=(F, 12, 3)).astype(np.float32)
     eblock = extras[None] + rng.normal(scale=0.02, size=(F, 4, 3)).astype(np.float32)
-    model.advance(dblock, 0, extras=eblock, backend="fused")
+    rows = model.advance(dblock, 0, extras=eblock)
+    assert np.all(np.isfinite(np.asarray(rows.msd_mean)))
     occ = np.asarray(model.ensemble.replicas.occ)
     np.testing.assert_allclose(occ.sum(axis=1), 4, atol=1e-5)

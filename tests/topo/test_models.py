@@ -54,7 +54,7 @@ def test_pair_rates_reproduce_bruteforce_pair_table():
 
 def test_pair_rates_match_python_oracle_on_random_walks():
     """Dense masked computation == O(N^2) python loop, over 10 random frames
-    (the reference's Verlet==bruteforce equivalence recast: on TPU there is one
+    (the reference's Verlet==bruteforce equivalence recast: here there is one
     code path, so the oracle is plain python; test_topology.py:68-101)."""
     cell = Cell.cubic([10.0, 10.0, 10.0])
     law = Fermi(a=jnp.float32(1.0), b=jnp.float32(2.5), c=jnp.float32(0.3))

@@ -1,6 +1,6 @@
 # Per-block wall times through the REAL driver loop (Simulation.observable_rows)
-# against an existing soak trajectory — the missing level between
-# profile_soak_phases.py (raw API loop) and soak_driver.py (aggregate only).
+# against an existing soak trajectory (tools/soak_driver.py --workdir keeps
+# one) — the per-block view behind soak_driver.py's aggregate number.
 # One row per yielded observable record: wall since the previous one.
 import argparse
 import os

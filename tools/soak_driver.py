@@ -1,9 +1,8 @@
 # End-to-end production soak: stream a large HDF5 trajectory through the full
-# driver stack (prefetch -> fused kernel -> observable resets -> periodic
-# checkpoints) and report steady-state site-updates/s. This is the committed,
-# reproducible form of the PARITY.md "million-frame soak" number.
+# driver stack (prefetch -> scan engine -> observable resets -> periodic
+# checkpoints) and report steady-state site-updates/s.
 #
-# TPU:  nohup python tools/soak_driver.py --frames 1000000 &
+# GPU:  python tools/soak_driver.py --frames 1000000
 # CPU:  python tools/soak_driver.py --platform cpu --frames 2000 --replicas 64
 import argparse
 import os
